@@ -17,7 +17,7 @@ import numpy as np
 from ..index.table import FingerprintTable
 from ..io.readstore import ReadStore
 from ..overlap.relation import compute_relation
-from ..utils.logging import clock
+from ..utils.logging import clock, log
 from . import replay
 
 
@@ -96,9 +96,11 @@ def run_buildg(paired_files: Sequence[str], single_files: Sequence[str],
     from ..overlap.relation import default_backend
     backend = default_backend()
     n_win = int(store.lengths.sum()) - store.n_reads * (min_overlap - 1)
-    # the small-input native shortcut applies only when the backend was
-    # AUTO-selected: an explicit DISCO_TPU_BACKEND=xla|device override must
-    # actually run that backend so it stays an independent cross-check oracle
+    # below 2^20 windows the auto-selected backend is the native host
+    # kernel (the device's jit compile is assumed to outweigh its gain;
+    # not timed on the H100).  The shortcut applies only when the backend
+    # was AUTO-selected: an explicit DISCO_TPU_BACKEND=xla|device override
+    # must run that backend so it stays an independent cross-check oracle
     backend_forced = bool(os.environ.get("DISCO_TPU_BACKEND"))
     two_pass = backend == "native" or (not backend_forced
                                        and n_win < (1 << 20))
@@ -110,6 +112,18 @@ def run_buildg(paired_files: Sequence[str], single_files: Sequence[str],
                        for p in (*paired_files, *single_files)) / (1 << 30)
         if max_mem_gb >= 6 * fasta_gb + 2:
             two_pass = False
+
+    if two_pass:
+        log.info("overlap backend: native on host (two-pass, %d windows)",
+                 n_win)
+    elif backend == "native":
+        log.info("overlap backend: native on host (one-pass, %d windows)",
+                 n_win)
+    else:
+        import jax
+        dev = jax.devices()[0]
+        log.info("overlap backend: %s on %s (%s, %d windows)", backend,
+                 dev.platform, dev.device_kind, n_win)
 
     rel = None
     if not two_pass:

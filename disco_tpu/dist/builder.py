@@ -4,7 +4,7 @@ equivalent (reference: src/BuildGraphMPI/, src/BuildGraphMPIRMA/).
 The overlap relation is computed on an n-device mesh via the sharded
 superstep (query axis data-parallel, fingerprint table hash-sharded,
 all_to_all candidate routing) and assembled into the SAME deterministic
-relation order as the single-chip host path, so the sequential replay emits
+relation order as the single-device host path, so the sequential replay emits
 output files byte-identical to a single-process reference run — by
 construction, unlike the reference whose multi-process output depends on
 rank/thread scheduling (SURVEY.md §4)."""
@@ -42,8 +42,8 @@ def _chunk_fallback(store, table, qread, qj, qcode, s, e):
     downstream containment replay and relation sort see identical rows.
     Skipping the marked-prune here is safe: pruned rows are exactly rows
     the replays skip (dist.sharded_relation_pruned docstring).
-    The reference has no such path — an overflowing rank aborts; the
-    TPU-native design degrades one chunk to the host instead."""
+    The reference has no such path — an overflowing rank aborts; here
+    one chunk degrades to the host instead."""
     return _xla_rows(store, table, qread[s:e], qj[s:e], qcode[s:e])
 
 

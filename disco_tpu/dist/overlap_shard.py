@@ -1,6 +1,6 @@
 """Multi-chip overlap superstep over a jax.sharding.Mesh.
 
-TPU-native replacement for the reference's two distribution modes:
+Replacement for the reference's two distribution modes:
 
 - BuildGraphMPI (replicated index, partitioned reads,
   reference: src/BuildGraphMPI/src/OverlapGraph.cpp:294-295): the query axis
@@ -82,10 +82,6 @@ class ShardedOverlapEngine:
     # (reference: src/BuildGraph/src/OverlapGraph.cpp:435-436); safe with
     # stale marks (pruning lags, never wrong), see dist.builder
     prune_marked: bool = False
-    # verification kernel choice for the mesh's platform: the fused Pallas
-    # pass on TPU meshes, the XLA roll-align path elsewhere (Pallas cannot
-    # compile for the CPU backend) — see overlap.device._dual_check
-    fused_verify: bool = False
 
     @classmethod
     def build(cls, store: ReadStore, table: FingerprintTable, mesh: Mesh,
@@ -107,12 +103,10 @@ class ShardedOverlapEngine:
             orient[s, :m] = table.orient[sel]
             typ[s, :m] = table.typ[sel]
             sizes[s] = m
-        fused = mesh.devices.flat[0].platform == "tpu"
         return cls(mesh=mesh, n_words=store.n_words, k=table.k,
                    hit_cap=hit_cap, route_cap=route_cap,
                    keys=keys, read=read, orient=orient, typ=typ,
-                   sizes=sizes, prune_marked=prune_marked,
-                   fused_verify=fused)
+                   sizes=sizes, prune_marked=prune_marked)
 
     # ------------------------------------------------------------------
     def _superstep(self, packed_all, lengths, qread, qj, qcode, marked,
@@ -193,7 +187,7 @@ class ShardedOverlapEngine:
         #    src/BuildGraph/src/OverlapGraph.cpp:517-595)
         edge_ok, cont_ok = candidate_checks(
             packed_all, lengths, qread, qj, r2, orient, valid,
-            k=self.k, n_words=self.n_words, fused=self.fused_verify)
+            k=self.k, n_words=self.n_words)
         return (r2, orient, typ, edge_ok, cont_ok, overflow[None],
                 marked_union[None, :])
 
@@ -252,7 +246,7 @@ class DistMemOverlapEngine(ShardedOverlapEngine):
     superstep's query slice covers a CONTIGUOUS read range, which under
     blocked ownership would direct every read1 fetch at one owner), and each
     superstep fetches exactly the rows it needs with one bulk-synchronous
-    all_to_all exchange pair per direction — the latency-amortized TPU
+    all_to_all exchange pair per direction — the latency-amortized
     equivalent of the reference's per-probe one-sided Gets (SURVEY.md §5.8).
 
     Replicated per device: the fingerprint table SHARD (by key owner), read
@@ -262,7 +256,8 @@ class DistMemOverlapEngine(ShardedOverlapEngine):
     payload bytes (4 B vs ~2×(L/4) B per read).
 
     Per-device memory: O(N/n_dev) payload + O(chunk · hit_cap) superstep
-    state, so a dataset that does not fit one chip's HBM fits the mesh.
+    state, so a dataset that does not fit one device's memory fits the
+    mesh.
     """
     fetch_cap: int = 0
 
@@ -278,8 +273,7 @@ class DistMemOverlapEngine(ShardedOverlapEngine):
                    hit_cap=base.hit_cap, route_cap=base.route_cap,
                    keys=base.keys, read=base.read, orient=base.orient,
                    typ=base.typ, sizes=base.sizes, fetch_cap=fetch_cap,
-                   prune_marked=prune_marked,
-                   fused_verify=base.fused_verify)
+                   prune_marked=prune_marked)
 
     @staticmethod
     def shard_payload(store: ReadStore, n_shards: int):
@@ -404,8 +398,7 @@ class DistMemOverlapEngine(ShardedOverlapEngine):
         rows2 = fetched[q_local:].reshape(q_local, hit_cap, -1)
 
         edge_ok, cont_ok = candidate_checks_rows(
-            rows1, rows2, lengths, qread, qj, r2, orient, valid, k=self.k,
-            fused=self.fused_verify)
+            rows1, rows2, lengths, qread, qj, r2, orient, valid, k=self.k)
         return (r2, orient, typ, edge_ok, cont_ok, overflow[None],
                 marked_union[None, :])
 

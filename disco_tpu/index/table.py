@@ -1,6 +1,6 @@
 """Sorted canonical fingerprint table over read end-(L-1)-mers.
 
-TPU-native replacement for the reference's chained prefix/suffix hash table
+Device-friendly replacement for the reference's chained prefix/suffix hash table
 (reference: src/BuildGraph/src/HashTable.cpp:341-571). Design differences:
 
 - The reference buckets records by a canonical hash min(h(s), h(rc(s))) and

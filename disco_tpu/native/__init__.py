@@ -1,26 +1,61 @@
 """Native (C++) runtime helpers, built on demand with g++ and loaded via
 ctypes. Keeps hot or semantics-critical host paths out of Python."""
 import ctypes
+import functools
+import hashlib
 import os
 import pathlib
 import subprocess
+import tempfile
 import threading
 
 import numpy as np
 
+from ..utils.logging import log
+
 _DIR = pathlib.Path(__file__).resolve().parent
+# build outputs live outside the package, under the checkout's ignored
+# build/ directory, one subdirectory per (source, compiler, flags) key, so
+# a copied tree never loads a library built from other sources or by
+# another compiler
+BUILD_DIR = _DIR.parent.parent / "build" / "native"
 _LOCK = threading.Lock()
 _LIB = None
 
 
+@functools.cache
+def _compiler_version() -> str:
+    return subprocess.run(["g++", "-dumpfullversion"], check=True,
+                          capture_output=True, text=True).stdout.strip()
+
+
+def _build_key(src: pathlib.Path, cmd) -> str:
+    """sha256 over the source, the compiler version and the flags: any
+    change of one of them names a new build directory."""
+    h = hashlib.sha256(src.read_bytes())
+    h.update(_compiler_version().encode())
+    h.update(" ".join(cmd).encode())
+    return h.hexdigest()[:16]
+
+
 def _compile(name: str, opt: str = "-O2", extra=()) -> ctypes.CDLL:
     src = _DIR / f"{name}.cpp"
-    so = _DIR / f"_{name}.so"
-    if (not so.exists()) or so.stat().st_mtime < src.stat().st_mtime:
-        subprocess.run(
-            ["g++", opt, "-shared", "-fPIC", "-std=c++17", *extra,
-             "-o", str(so), str(src)],
-            check=True)
+    flags = [opt, "-shared", "-fPIC", "-std=c++17", *extra]
+    out_dir = BUILD_DIR / _build_key(src, flags)
+    so = out_dir / f"_{name}.so"
+    if not so.exists():
+        out_dir.mkdir(parents=True, exist_ok=True)
+        # write through a temp name and rename atomically, so a concurrent
+        # process (pytest-xdist workers) never loads a half-written file
+        fd, tmp = tempfile.mkstemp(dir=out_dir, suffix=".so.tmp")
+        os.close(fd)
+        try:
+            subprocess.run(["g++", *flags, "-o", tmp, str(src)], check=True)
+            os.replace(tmp, so)
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+        log.info("native: built %s", so)
     return ctypes.CDLL(str(so))
 
 

@@ -327,7 +327,7 @@ extern "C" int64_t seq_scan_fill(const char* data, int64_t size,
 // occupies process-anonymous memory and its resident pages are released
 // between the two passes — at metagenome scale the in-memory raw buffer +
 // worst-case output buffer of the buffer API was the largest ingest
-// transient (BASELINE.md round-3 memory table).  Byte semantics identical
+// transient.  Byte semantics identical
 // to seq_scan_count/seq_scan_fill.
 // ---------------------------------------------------------------------------
 #include <fcntl.h>

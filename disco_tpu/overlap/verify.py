@@ -2,8 +2,8 @@
 
 Replaces the reference's byte-wise std::string::substr comparisons
 (reference: src/BuildGraph/src/OverlapGraph.cpp:534,549,581,593) with 2-bit
-packed uint32 word compares: 16 bases per XOR+mask op on the VPU instead of
-one byte-compare per base on a scalar core. All candidate pairs are verified
+packed uint32 word compares: 16 bases per XOR+mask op instead of one
+byte-compare per base. All candidate pairs are verified
 in one data-parallel batch instead of the reference's per-substring bucket
 probes.
 
@@ -21,9 +21,8 @@ import numpy as np
 def _window_word(packed, rows, base_off, wi):
     """Extract the uint32 word covering bases [base_off+16*wi, +16) of each
     row. `packed` is (R, W+1) with a trailing zero word so w0+1 is in range.
-    NOTE: per-element 2D gather — catastrophically slow on TPU (~9e7
-    gathered elements/s measured on v5e); kept only for the CPU-side oracle
-    `verify_windows_gather` below."""
+    Per-element 2-D gather; used by the `verify_windows_gather` oracle
+    below."""
     word_idx = base_off // 16 + wi
     bit = (2 * (base_off % 16)).astype(jnp.uint32)
     w0 = packed[rows, word_idx]
@@ -41,9 +40,8 @@ def align_window(blk, o):
     Wrapped tail words after the roll only ever reach masked-off window
     positions: a word wi needs its successor's bits only when the window
     still has >=1 base there, which for a valid window (o+n within the
-    real words) means the successor is real data, never wrap.  The TPU
-    lowering of this is pure elementwise work; the per-element dynamic
-    gather it replaces ran ~100x slower (see _window_word note)."""
+    real words) means the successor is real data, never wrap.  Pure
+    elementwise work on the gathered rows: no per-element gathers."""
     wp = blk.shape[1]
     d = (o // 16).astype(jnp.int32)
     x = blk
@@ -81,10 +79,10 @@ def verify_windows(packed_all, rows1, rows2, o1, o2, n, *, n_words):
     o1/o2: (P,) int32 base offsets; n: (P,) int32 window lengths (0 => True).
     Returns (P,) bool.
 
-    TPU-shaped implementation: two whole-ROW gathers (the only gathers —
-    contiguous 4*Wp-byte rows), roll-alignment of both windows to word 0,
-    then static-column word compares.  Replaces the per-(element, word)
-    dynamic gathers that ran at ~9e7 elem/s on v5e (76 of them per pair)."""
+    Two whole-ROW gathers (the only gathers — contiguous 4*Wp-byte rows),
+    roll-alignment of both windows to word 0, then static-column word
+    compares; `verify_windows_gather` is the per-element formulation of the
+    same check."""
     blk1 = align_window(packed_all[rows1], o1.astype(jnp.int32))
     blk2 = align_window(packed_all[rows2], o2.astype(jnp.int32))
     return _masked_equal(blk1, blk2, n, n_words)
@@ -112,34 +110,3 @@ def verify_windows_gather(packed_all, rows1, rows2, o1, o2, n, *, n_words):
 def make_packed_all(packed: np.ndarray, packed_rc: np.ndarray) -> jnp.ndarray:
     """Stack forward and rc packed reads: rows [0,N) forward, [N,2N) rc."""
     return jnp.asarray(np.concatenate([packed, packed_rc], axis=0))
-
-
-@functools.partial(jax.jit, static_argnames=("n_words", "interpret"))
-def verify_windows_pallas(packed_all, rows1, rows2, o1, o2, n, *, n_words,
-                          interpret=False):
-    """Same contract as verify_windows, but the shift/compare core runs as a
-    Pallas kernel (disco_tpu.overlap.pallas_kernel) after an XLA gather of
-    the word columns.  Pads the pair axis to the kernel tile size."""
-    from .pallas_kernel import LANES, SUB, compare_windows
-
-    p = rows1.shape[0]
-    tile = SUB * LANES
-    pad = (-p) % tile
-    if pad:
-        z = jnp.zeros(pad, jnp.int32)
-        rows1 = jnp.concatenate([rows1.astype(jnp.int32), z])
-        rows2 = jnp.concatenate([rows2.astype(jnp.int32), z])
-        o1 = jnp.concatenate([o1.astype(jnp.int32), z])
-        o2 = jnp.concatenate([o2.astype(jnp.int32), z])
-        n = jnp.concatenate([n.astype(jnp.int32), z])
-    o1 = o1.astype(jnp.int32)
-    o2 = o2.astype(jnp.int32)
-    n = n.astype(jnp.int32)
-    # (W+1, P) fully-aligned word columns via the row-gather + roll-align
-    # preamble (same as verify_windows; the per-element gather preamble
-    # this replaces was the dominant cost, not the compare kernel)
-    a = align_window(packed_all[rows1], o1).T
-    b = align_window(packed_all[rows2], o2).T
-    zero = jnp.zeros_like(o1)
-    ok = compare_windows(a, b, zero, zero, n, interpret=interpret)
-    return ok[:p] if pad else ok

@@ -1,4 +1,4 @@
-"""Graph-simplification layer: the TPU-native re-implementation of the
+"""Graph-simplification layer: the re-implementation of the
 reference's SimplifyGraph executables (`fullsimplify`, `parsimplify`;
 reference: src/SimplifyGraph/).
 

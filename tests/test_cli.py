@@ -4,7 +4,9 @@ src/SimplifyGraph/src/Config.cpp:198-288, mainParSimplify.cpp:13-17) —
 outputs must stay bit-identical to the golden reference runs."""
 import shutil
 
-from conftest import GOLDEN
+import pytest
+
+from conftest import GOLDEN, PARAM_FILES
 from disco_tpu.cli import main
 
 
@@ -44,9 +46,8 @@ def test_cli_simplify_mini(tmp_path):
         "-e", str(tmp_path / "mini_0_parGraph.txt"),
         "-crd", str(tmp_path / "mini_0_containedReads.txt"),
         "-o", prefix,
-        "-p", "/root/reference/disco.cfg",
-        "-p2", "/root/reference/disco_2.cfg",
-        "-p3", "/root/reference/disco_3.cfg"]) == 0
+        "-p", PARAM_FILES[0], "-p2", PARAM_FILES[1],
+        "-p3", PARAM_FILES[2]]) == 0
     got = (tmp_path / "mini_scaffoldsFinal_1.fasta").read_bytes()
     want = (d / "simplify" / "mini_scaffoldsFinal_1.fasta").read_bytes()
     assert got == want
@@ -66,3 +67,17 @@ def test_cli_buildg_distributed(tmp_path, monkeypatch):
         got = (tmp_path / ("micro" + name)).read_bytes()
         want = (d / ("micro" + name)).read_bytes()
         assert got == want, name
+
+
+def test_mesh_refuses_more_devices_than_the_accelerator_has(monkeypatch):
+    """-n beyond the accelerator's devices fails; it never moves the run
+    onto virtual CPU devices."""
+    import jax
+
+    from disco_tpu.cli import _mesh
+
+    class FakeGpu:
+        platform = "gpu"
+    monkeypatch.setattr(jax, "devices", lambda *a: [FakeGpu()])
+    with pytest.raises(SystemExit, match="platform 'gpu' has only 1"):
+        _mesh(4)

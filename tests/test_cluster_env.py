@@ -1,7 +1,10 @@
 """Scheduler-environment derivation for distributed launches (the
 reference's runDisco-MPI-SLURM.sh:214 / runDisco-MPI-ALPS.sh launcher
 equivalents)."""
-from disco_tpu.dist.multiproc import derive_cluster_env, first_slurm_host
+import pytest
+
+from disco_tpu.dist.multiproc import (derive_cluster_env, derive_local_rank,
+                                     first_slurm_host)
 
 
 def test_first_slurm_host():
@@ -34,5 +37,15 @@ def test_ompi_env():
 
 def test_tpu_pod_passthrough():
     # nothing recognized -> all None so jax.distributed.initialize()
-    # derives from the TPU runtime itself
+    # applies its own cluster auto-detection
     assert derive_cluster_env({}) == (None, None, None)
+
+
+@pytest.mark.parametrize("env,want", [
+    ({"SLURM_LOCALID": "2", "SLURM_PROCID": "6"}, 2),
+    ({"OMPI_COMM_WORLD_LOCAL_RANK": "3", "OMPI_COMM_WORLD_RANK": "7"}, 3),
+    ({"SLURM_PROCID": "1"}, None),
+])
+def test_local_rank(env, want):
+    # the per-host rank names the one GPU each process drives
+    assert derive_local_rank(env) == want

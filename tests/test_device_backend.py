@@ -2,6 +2,7 @@
 produce the exact relation of the native host kernel — including when the
 bucket-overflow and compaction-overflow fallbacks fire."""
 import numpy as np
+import pytest
 
 from conftest import GOLDEN
 from disco_tpu.index.table import FingerprintTable
@@ -78,3 +79,15 @@ def test_device_backend_wire64_env(monkeypatch):
     want = compute_relation(store, table, backend="native")
     got = _device_relation(store, table, chunk=1 << 14)
     _assert_equal(got, want)
+
+
+def test_default_backend_propagates_jax_errors(monkeypatch):
+    """A JAX that fails to start must not silently pick the host kernel."""
+    import jax
+
+    def broken():
+        raise RuntimeError("no backend")
+    monkeypatch.delenv("DISCO_TPU_BACKEND", raising=False)
+    monkeypatch.setattr(jax, "default_backend", broken)
+    with pytest.raises(RuntimeError, match="no backend"):
+        default_backend()

@@ -40,7 +40,7 @@ def test_device_overlap_matches_host_relation():
 
 
 def test_aligned_vs_gather_verify():
-    """The roll-aligned verify (TPU-shaped, production) must agree with the
+    """The roll-aligned verify (production) must agree with the
     per-element-gather formulation on randomized windows, including n=0,
     partial-word tails, and maximal offsets."""
     import jax
@@ -71,3 +71,4 @@ def test_aligned_vs_gather_verify():
                                          n, n_words=store.n_words))
     np.testing.assert_array_equal(a, b)
     assert a.any() and not a.all()  # non-degenerate case mix
+

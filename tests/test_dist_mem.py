@@ -80,7 +80,7 @@ def test_pruned_relation_skips_contained_work(dist_mem):
     """In-loop containment marking feeds the all_gathered mask union, and
     later supersteps demonstrably skip candidates touching contained reads
     (fewer relation rows), while the replay-visible rows are unchanged
-    (VERDICT r2 item 8; reference work pruning:
+    (reference work pruning:
     src/BuildGraph/src/OverlapGraph.cpp:435-436)."""
     from disco_tpu.buildg import replay
     from disco_tpu.dist.builder import sharded_relation_pruned

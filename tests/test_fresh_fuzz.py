@@ -14,10 +14,10 @@ import sys
 
 import pytest
 
+from conftest import PARAM_FILES
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 REFBUILD = ROOT / "refbuild"
-PARAM_FILES = ["/root/reference/disco.cfg", "/root/reference/disco_2.cfg",
-               "/root/reference/disco_3.cfg"]
 
 SIMPLIFY_OUTPUTS = [
     "phase_parsimplify_1.txt", "phase_initial_1.txt",

@@ -4,7 +4,7 @@ import shutil
 
 import pytest
 
-from conftest import GOLDEN
+from conftest import GOLDEN, PARAM_FILES
 from disco_tpu.simplify.driver import run_fullsimplify
 
 
@@ -22,8 +22,7 @@ def test_gfa_and_unused_parity(tmp_path):
                      [str(tmp_path / "mini_0_containedReads.txt")],
                      prefix,
                      param_files=[str(gold / "p1gfa.cfg"),
-                                  "/root/reference/disco_2.cfg",
-                                  "/root/reference/disco_3.cfg"])
+                                  *PARAM_FILES[1:]])
     for name in ("mini_Graph_1.gfa", "mini_Graph_1.gfa2",
                  "mini_0_UnusedPairedReads.fasta"):
         got = (tmp_path / name).read_bytes()
@@ -34,7 +33,7 @@ def test_gfa_and_unused_parity(tmp_path):
 def test_mate_array_matches_mate_pair():
     """The vectorized mate array must equal mate_pair for every read,
     across interleaved, separated, and single datasets."""
-    from conftest import GOLDEN
+    from conftest import GOLDEN, PARAM_FILES
     from disco_tpu.simplify.dataset import SimplifyDataset
 
     d = SimplifyDataset([str(GOLDEN / "mixed" / "se.fasta")],

@@ -1,4 +1,4 @@
-"""Peak-RSS regression guard (VERDICT r3: host memory ran at 4x the
+"""Peak-RSS regression guard (host memory once ran at 4x the
 reference; the round-4 diet cut buildG ~30% — this pins the gains).
 
 Budgets are generous (~2x the measured post-diet peaks at this scale) so
@@ -11,6 +11,8 @@ import subprocess
 import sys
 
 import pytest
+
+from conftest import PARAM_FILES
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
@@ -35,8 +37,7 @@ def peak_mb():
 fasta, prefix = sys.argv[1], sys.argv[2]
 run_buildg([fasta], [], prefix, min_overlap=40, write_par_graph_size=20000)
 build_peak = peak_mb()
-PARAM = ["/root/reference/disco.cfg", "/root/reference/disco_2.cfg",
-         "/root/reference/disco_3.cfg"]
+PARAM = %(params)r
 run_fullsimplify([], [], [fasta], [prefix + "_0_parGraph.txt"],
                  [prefix + "_0_containedReads.txt"], prefix + "S",
                  param_files=PARAM)
@@ -47,8 +48,6 @@ print(json.dumps({"build_mb": build_peak, "full_mb": full_peak}))
 
 @pytest.mark.slow
 def test_peak_rss_budget(tmp_path):
-    if not pathlib.Path("/root/reference/disco.cfg").exists():
-        pytest.skip("reference cfgs unavailable")
     fasta = tmp_path / "reads.fasta"
     subprocess.run(
         [sys.executable, str(ROOT / "tools" / "make_testdata.py"),
@@ -56,7 +55,7 @@ def test_peak_rss_budget(tmp_path):
          "--seed", "19"],
         check=True, stdout=subprocess.DEVNULL)
     p = subprocess.run(
-        [sys.executable, "-c", _CHILD % {"root": str(ROOT)},
+        [sys.executable, "-c", _CHILD % {"root": str(ROOT), "params": PARAM_FILES},
          str(fasta), str(tmp_path / "MB")],
         capture_output=True, text=True,
         env={"JAX_PLATFORMS": "cpu", "PATH": "/usr/bin:/bin:/usr/local/bin"})

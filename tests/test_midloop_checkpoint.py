@@ -10,11 +10,9 @@ import shutil
 
 import pytest
 
-from conftest import GOLDEN
+from conftest import GOLDEN, PARAM_FILES
 from disco_tpu.simplify.driver import run_fullsimplify
 
-PARAM_FILES = ["/root/reference/disco.cfg", "/root/reference/disco_2.cfg",
-               "/root/reference/disco_3.cfg"]
 
 COMPARE = ["mini_phase_initial_1.txt", "mini_phase_aggressive_1.txt",
            "mini_phase_flow_1.txt", "mini_phase_postflow_1.txt",

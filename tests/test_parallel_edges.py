@@ -1,7 +1,7 @@
 """removeParallelEdges operator (reference: OverlapGraph::removeParallelEdges,
 src/SimplifyGraph/src/OverlapGraph.cpp:1611-1648 — present in the reference
 but not invoked by its main flow, main.cpp:176)."""
-from conftest import GOLDEN
+from conftest import GOLDEN, PARAM_FILES
 from disco_tpu.simplify.dataset import SimplifyDataset
 from disco_tpu.simplify.engine import FullGraph
 from disco_tpu.simplify.params import Params
@@ -11,7 +11,7 @@ from disco_tpu.simplify.pargraph import parsimplify
 def _graph_from_lines(lines):
     d = GOLDEN / "mini"
     params = Params()
-    params.set_parameters("/root/reference/disco.cfg")
+    params.set_parameters(PARAM_FILES[0])
     dataset = SimplifyDataset([], [], [str(d / "reads.fasta")])
     graph = FullGraph(dataset, params)
     import tempfile
@@ -51,7 +51,7 @@ def test_remove_parallel_edges_real_graph(tmp_path):
     retains two edges sharing a destination."""
     d = GOLDEN / "mini"
     params = Params()
-    params.set_parameters("/root/reference/disco.cfg")
+    params.set_parameters(PARAM_FILES[0])
     dataset = SimplifyDataset([], [], [str(d / "reads.fasta")])
     dataset.store_contained_read_info(
         [str(d / "mini_0_containedReads.txt")])

@@ -176,7 +176,7 @@ def test_cli_preprocess_and_ecc_assemble(tmp_path, bbmap):
     (stubs are copy-through)."""
     import shutil
 
-    from conftest import GOLDEN
+    from conftest import GOLDEN, PARAM_FILES
     from disco_tpu.cli import main
 
     d = GOLDEN / "micro"
@@ -189,5 +189,5 @@ def test_cli_preprocess_and_ecc_assemble(tmp_path, bbmap):
     out = tmp_path / "out"
     assert main(["assemble", "-inS", str(reads), "-d", str(out),
                  "-o", "m", "-ecc", "-bbmap", str(bbmap),
-                 "-p", "/root/reference/disco.cfg"]) == 0
+                 "-p", PARAM_FILES[0]]) == 0
     assert (out / "m_contigsFinalCombined.fasta").exists()

@@ -1,7 +1,7 @@
 """End-to-end preprocessing with STUB BBTools binaries: real subprocess
 execution of the bbduk/bbmerge/tadpole ladder (catching quoting/path bugs
 the command-shape tests cannot), then `assemble -ecc` straight through to
-combined contig/scaffold FASTAs (VERDICT r2 item 10)."""
+combined contig/scaffold FASTAs."""
 import os
 import pathlib
 import stat
@@ -9,7 +9,7 @@ import subprocess
 
 import pytest
 
-from conftest import GOLDEN
+from conftest import GOLDEN, PARAM_FILES
 
 STUB = """#!/usr/bin/env bash
 # stub BBTools: record the invocation, copy in->out positionally
@@ -81,9 +81,8 @@ def test_assemble_ecc_to_contigs(stub_bbmap, tmp_path):
     reads = GOLDEN / "mini" / "reads.fasta"
     out = tmp_path / "asm"
     rc = main(["assemble", "-inP", str(reads), "-d", str(out), "-o", "mini",
-               "-p", "/root/reference/disco.cfg",
-               "-p2", "/root/reference/disco_2.cfg",
-               "-p3", "/root/reference/disco_3.cfg",
+               "-p", PARAM_FILES[0], "-p2", PARAM_FILES[1],
+               "-p3", PARAM_FILES[2],
                "-ecc", "-bbmap", str(stub_bbmap)])
     assert rc == 0
     assert log.exists() and len(log.read_text().splitlines()) == 4

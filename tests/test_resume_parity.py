@@ -5,11 +5,9 @@ import shutil
 
 import pytest
 
-from conftest import GOLDEN
+from conftest import GOLDEN, PARAM_FILES
 from disco_tpu.simplify.driver import run_fullsimplify
 
-PARAM_FILES = ["/root/reference/disco.cfg", "/root/reference/disco_2.cfg",
-               "/root/reference/disco_3.cfg"]
 
 
 def test_resume_after_flow(tmp_path):

@@ -1,8 +1,9 @@
 """End-to-end buildG wall-clock benchmark: device backend vs native backend
-(and optionally the reference binary) on the BASELINE.md 4.6 Mb/30x config.
+(and optionally the reference binary) on a 4.6 Mb/30x isolate by default.
 
 Usage: python tools/bench_e2e.py [--genome-len N] [--coverage C] [--ref]
-Prints one JSON line per backend.
+Prints one JSON line.  Backends run one after another, each in its own
+process, so one process at a time holds the accelerator.
 """
 import argparse
 import json
@@ -80,12 +81,6 @@ def main():
                "coverage": args.coverage,
                "outputs_identical": identical, **results}
     print(json.dumps(payload))
-    # cache for bench.py to merge into the round JSON line
-    cache = ROOT / "refbuild" / "bench_e2e.json"
-    try:
-        cache.write_text(json.dumps(payload))
-    except OSError:
-        pass
 
 
 if __name__ == "__main__":

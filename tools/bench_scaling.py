@@ -1,6 +1,6 @@
 #!/usr/bin/env python
 """Weak-scaling measurement + communication-volume model for the sharded
-overlap superstep (the multi-chip production path, dist/builder.py).
+overlap superstep (the multi-device production path, dist/builder.py).
 
 Runs on the virtual CPU mesh (JAX_PLATFORMS=cpu,
 xla_force_host_platform_device_count=N): per n in --devices, builds a
@@ -9,14 +9,12 @@ relation, and reports
 
   - supersteps, wall per superstep (after a compile-excluded warm chunk),
   - per-device bytes exchanged per superstep, from the engine's actual
-    buffer shapes (the model the ICI-efficiency prediction rests on),
-  - the verification-compute to communication ratio at TPU rates.
+    buffer shapes (a count, not a time).
 
 Virtual-mesh caveat: all N "devices" share this host's cores, so wall
 clocks here validate that work per device stays flat (no serial
 bottleneck growing with N) — they cannot demonstrate real-parallel
-speedup.  The ICI prediction in docs/MULTIHOST.md combines the byte
-model printed here with published per-chip ICI bandwidth.
+speedup, and exchange times on real cards are not measured here.
 
 Reference being modeled: the RMA op counting at
 src/BuildGraphMPIRMA/src/OverlapGraph.cpp:388 (per-probe MPI_Get traffic),
@@ -141,23 +139,6 @@ def main():
             "comm_bytes_per_pair": round(bts / max(pairs, 1), 2),
         })
         print(json.dumps(rows[-1]), flush=True)
-
-    # model summary at TPU rates
-    ICI = float(os.environ.get("DISCO_TPU_ICI_BPS", 9e10))  # ~90 GB/s v5e
-    RATE = float(os.environ.get("DISCO_TPU_VERIFY_RATE", 5.75e8))
-    last = rows[-1]
-    comm_s = last["bytes_per_dev_per_superstep"] / ICI
-    comp_s = 2 * last["pairs_per_dev_per_superstep"] / RATE
-    eff = comp_s / (comp_s + comm_s)
-    print(json.dumps({
-        "model": "per-superstep, largest mesh",
-        "ici_bytes_per_s": ICI, "verify_pairs_per_s": RATE,
-        "comm_s": round(comm_s, 6), "compute_s": round(comp_s, 6),
-        "unoverlapped_efficiency": round(eff, 4),
-        "note": "1-deep dispatch pipeline overlaps host compaction; "
-                "collectives overlap compute under XLA latency hiding, "
-                "so this efficiency is a lower bound",
-    }))
 
 
 if __name__ == "__main__":
